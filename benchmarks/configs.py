@@ -1,9 +1,9 @@
-"""Per-config benchmarks for the five BASELINE.json configurations.
+"""Per-config benchmarks for BASELINE.json configurations 1-4 on one GPU.
 
-Prints one JSON line per config (readback-fenced walls, distinct
-inputs per rep — see BENCH_NOTES.md "Measurement integrity").
-Config #5 (streaming at scale) lives in benchmarks/northstar.py;
-here it runs at a reduced smoke size.
+Prints one JSON line per config, each naming its device. Each config
+is one jitted function of the public ops, timed as the median wall of
+REPS calls that end in ``block_until_ready``, after a compiling call.
+Config #5 (streaming at scale) lives in benchmarks/northstar.py.
 
 Usage: python benchmarks/configs.py [--quick]
 """
@@ -11,6 +11,7 @@ Usage: python benchmarks/configs.py [--quick]
 import argparse
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -18,35 +19,29 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-import jax.numpy as jnp
-
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.expanduser("~/.cache/transport_analysis_tpu_xla"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 import transport_analysis_tpu  # noqa: E402,F401
 from transport_analysis_tpu import ops  # noqa: E402
+from transport_analysis_tpu.utils.runtime import (  # noqa: E402
+    enable_compile_cache, require_gpu,
+)
+
+REPS = 4
 
 
-def fenced(fn, *args, reps=4):
-    """Scan-fenced wall per rep (distinct inputs, one readback)."""
-    def loop(*a):
-        def body(c, i):
-            s = 1.0 + 1e-9 * i.astype(jnp.float64)
-            out = fn(*(x * s for x in a))
-            return c + jnp.sum(out[..., -1].astype(jnp.float64)), None
-        t, _ = jax.lax.scan(body, jnp.zeros(()), jnp.arange(reps))
-        return t
-
-    f = jax.jit(loop)
-    total = float(f(*args))
-    assert np.isfinite(total)
-    t0 = time.perf_counter()
-    float(f(*args))
-    return (time.perf_counter() - t0) / reps
+def timed(fn, *args):
+    """Median wall of the jitted ``fn`` over REPS blocked calls."""
+    f = jax.jit(fn)
+    out = jax.block_until_ready(f(*args))
+    assert np.all(np.isfinite(np.asarray(out)))
+    walls = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        jax.block_until_ready(f(*args))
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
 
 
 def lags_full(n, p):
@@ -57,6 +52,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     args = ap.parse_args()
+    device = require_gpu()
+    enable_compile_cache()
 
     rng = np.random.RandomState(0)
     results = []
@@ -64,51 +61,30 @@ def main():
     # 1: windowed (exact) VACF — O(N²·P·d) on device
     n, p = (1024, 64) if args.quick else (4096, 128)
     vel = jnp.asarray(rng.normal(0, 5, (n, p, 3)))
-    w = fenced(lambda v: ops.acf_windowed(v), vel, reps=2)
+    w = timed(lambda v: ops.acf_windowed(v), vel)
     results.append({
         "config": f"1 VACF windowed exact (N={n}, P={p}, f64)",
         "value": lags_full(n, p) / w, "unit": "atom-frame-lags/s",
-        "wall_s": round(w, 3),
+        "wall_s": w,
     })
-
-    # Configs 2-4 run FFT analyses inside the scan's trace, where the
-    # dispatch correctly refuses the eager Pallas engine (its cached
-    # banded constants would embed as program literals). Thread the
-    # constants through as ARGUMENTS and call the traceable engine
-    # entry points — same recipe as bench.py — so the table measures
-    # the PRODUCTION engine path, not the matmul-FFT fallback (which
-    # it silently did for three rounds: 2.7e11 vs 1.1e12 lags/s).
-    from transport_analysis_tpu.ops import acf as ACF
-    from transport_analysis_tpu.ops import einstein as EIN
-    from transport_analysis_tpu.ops import pallas_fft as PF
 
     n, p = (2048, 128) if args.quick else (8192, 512)
     vel = jnp.asarray(rng.normal(0, 5, (n, p, 3)))
     times = jnp.arange(n, dtype=jnp.float64) * 0.002
-    m = 2 * ACF.next_pow_2(n)
-    engine = (ACF.engine_consts_for(n)
-              if PF.supported(m, p * 3) else None)
 
-    def corr_of(v):
-        if engine is None:
-            return ACF.raw_autocorr_sumlast(v)
-        consts, n_bands, max_group = engine
-        return ACF.raw_autocorr_sumlast_engine(
-            v, consts, n_bands, max_group)
-
+    # 2: VACF FFT + Green-Kubo diffusivity
     def vacf_gk(v):
-        norm = (n - jnp.arange(n, dtype=v.dtype))[:, None]
-        ts = (corr_of(v) / norm).mean(axis=1)
+        ts = ops.acf_fft(v).mean(axis=1)
         return ts + ops.trapezoid(ts, times) / 3.0
 
-    w = fenced(vacf_gk, vel)
+    w = timed(vacf_gk, vel)
     results.append({
         "config": f"2 VACF FFT + GK diffusivity (N={n}, P={p}, f64)",
         "value": lags_full(n, p) / w, "unit": "atom-frame-lags/s",
-        "wall_s": round(w, 3),
+        "wall_s": w,
     })
 
-    # 3: Helfand viscosity accumulators
+    # 3: Helfand viscosity function
     pos = jnp.asarray(
         np.cumsum(np.asarray(vel), axis=0) * 0.002
         + rng.uniform(0, 20, (1, p, 3))
@@ -117,43 +93,25 @@ def main():
 
     def helfand(v, x):
         accum = masses[None, :, None] * v * x
-        accum = EIN._center(accum)
-        corr = corr_of(accum)
-        return ops.einstein_difference_fft(
-            accum, "mean", corr=corr).mean(axis=1)
+        return ops.einstein_difference_fft(accum, "mean").mean(axis=1)
 
-    w = fenced(helfand, vel, pos)
+    w = timed(helfand, vel, pos)
     results.append({
         "config": f"3 Helfand viscosity function (N={n}, P={p}, f64)",
         "value": lags_full(n, p) / w, "unit": "atom-frame-lags/s",
-        "wall_s": round(w, 3),
+        "wall_s": w,
     })
 
-    # 4: Einstein MSD via FFT (sum over components + Kneller assembly
-    # on the engine-threaded correlation)
-    def msd(x):
-        c = EIN._center(x)
-        corr = corr_of(c)
-        return ops.einstein_difference_fft(
-            c, "sum", corr=corr).mean(axis=1)
-
-    w = fenced(msd, pos)
+    # 4: Einstein MSD via FFT
+    w = timed(lambda x: ops.msd_fft(x).mean(axis=1), pos)
     results.append({
         "config": f"4 Einstein MSD FFT (N={n}, P={p}, f64)",
         "value": lags_full(n, p) / w, "unit": "atom-frame-lags/s",
-        "wall_s": round(w, 3),
-    })
-
-    # 5: streaming smoke (full run: benchmarks/northstar.py)
-    results.append({
-        "config": "5 streaming 100k-atom scale",
-        "see": "benchmarks/northstar.py (1.82e12 lags/s sustained, "
-               "59.2 s for 100,352 atoms x 32,768 frames at the "
-               "recalibrated auto chunk=1024; the 2^20-frame rungs "
-               "run 5.4e13 lags/s)",
+        "wall_s": w,
     })
 
     for r in results:
+        r["device"] = device
         print(json.dumps(r))
 
 

@@ -141,9 +141,9 @@ class TestDtypeFastMode:
 
 
 class TestFrameBlockedFeed:
-    """frame_block= streams the selection host→HBM in blocks
-    (round-1 VERDICT weak #5: the batch engine materialized the full
-    (N, P, 3) selection on host). Results must be identical to the
+    """frame_block= streams the selection host→device in blocks
+    (the batch engine alone materializes the full (N, P, 3) selection
+    on host). Results must be identical to the
     one-shot batch engine for every analysis, including strided runs
     and blocks that don't divide the frame count."""
 

@@ -5,9 +5,9 @@ Trajectory decoders serve float32 samples (core/trajectory.py
 core/trajectory.py:282-284), and f32 values are exactly representable
 in float64 — so the models keep the feed buffers f32 under the default
 float64 work dtype and the conclude kernels consume them through the
-f64-grade ``*_from_f32`` ops entries. Off the TPU deep path those
-entries upcast and run the standard dispatch, so every assertion here
-is BIT-identity against the forced-upcast run
+``*_from_f32`` ops entries, which upcast on the device and run the
+float64 path, so every assertion here is BIT-identity against the
+forced-upcast run
 (``TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE=1``).
 """
 

@@ -1,5 +1,6 @@
-"""Matmul-decomposition FFT tests (ops/fft.py) — the TPU spectral path,
-validated on CPU against numpy's FFT and against the native-FFT kernels."""
+"""Matmul-decomposition FFT tests (ops/fft.py) — the local levels of the
+frame-sharded transform, validated against numpy's FFT and against the
+native-FFT kernels."""
 
 import numpy as np
 import pytest
@@ -67,126 +68,3 @@ def test_matmul_path_matches_native_acf():
     ).reshape(n, p, d).sum(axis=-1)
     matmul = raw / (n - np.arange(n))[:, None]
     assert_allclose(matmul, native, rtol=1e-10, atol=1e-10)
-
-
-class TestOzaki:
-    """Ozaki banded-bf16 float64 GEMMs (the TPU f64 matmul path)."""
-
-    def test_matmul_accuracy(self):
-        from transport_analysis_tpu.ops.ozaki import matmul_f64_ozaki
-
-        rng = np.random.RandomState(0)
-        a = rng.randn(128, 128) * np.exp(rng.uniform(-8, 8, (128, 1)))
-        b = rng.randn(128, 300) * np.exp(rng.uniform(-4, 4, (1, 300)))
-        got = np.asarray(matmul_f64_ozaki(a, b))
-        want = a @ b
-        assert_allclose(got, want, rtol=1e-12,
-                        atol=1e-13 * np.max(np.abs(want)))
-
-    def test_k_limit(self):
-        from transport_analysis_tpu.ops.ozaki import matmul_f64_ozaki
-
-        with pytest.raises(ValueError, match="contraction"):
-            matmul_f64_ozaki(np.ones((4, 600)), np.ones((600, 4)))
-
-    def test_complex_dft_matmul(self):
-        from transport_analysis_tpu.ops.ozaki import complex_dft_matmul
-
-        rng = np.random.RandomState(1)
-        n, b = 128, 257
-        c = np.cos(rng.uniform(0, 7, (n, n)))
-        s = np.sin(rng.uniform(0, 7, (n, n)))
-        re = rng.randn(n, b) * np.exp(rng.uniform(-6, 6, (1, b)))
-        im = rng.randn(n, b) * np.exp(rng.uniform(-6, 6, (1, b)))
-        got_re, got_im = complex_dft_matmul(
-            *map(jnp.asarray, (c, s, re, im))
-        )
-        want_re = c @ re - s @ im
-        want_im = c @ im + s @ re
-        scale = max(np.max(np.abs(want_re)), np.max(np.abs(want_im)))
-        assert_allclose(np.asarray(got_re), want_re, atol=1e-12 * scale)
-        assert_allclose(np.asarray(got_im), want_im, atol=1e-12 * scale)
-
-    def test_fft_with_ozaki_forced(self, monkeypatch):
-        """Force the Ozaki path on CPU: full matmul-FFT accuracy must
-        hold (same path the TPU takes for float64)."""
-        from transport_analysis_tpu.ops import fft as fft_mod
-
-        monkeypatch.setattr(fft_mod, "_use_ozaki",
-                            lambda dtype: dtype == jnp.float64)
-        rng = np.random.RandomState(2)
-        x = rng.randn(1024, 3) + 1j * rng.randn(1024, 3)
-        fr, fi = fft_mod.matmul_fft(
-            jnp.asarray(x.real), jnp.asarray(x.imag)
-        )
-        ref = np.fft.fft(x, axis=0)
-        scale = np.max(np.abs(ref))
-        assert_allclose(np.asarray(fr), ref.real, atol=1e-11 * scale)
-        assert_allclose(np.asarray(fi), ref.imag, atol=1e-11 * scale)
-
-    def test_acf_with_ozaki_forced(self, monkeypatch):
-        from transport_analysis_tpu.ops import fft as fft_mod
-        from transport_analysis_tpu.ops.fft import raw_autocorr_matmul
-
-        monkeypatch.setattr(fft_mod, "_use_ozaki",
-                            lambda dtype: dtype == jnp.float64)
-        rng = np.random.RandomState(3)
-        n, s = 700, 5
-        x = rng.randn(n, s)
-        m = 2 * next_pow_2(n)
-        xp = np.zeros((m, s))
-        xp[:n] = x
-        got = np.asarray(raw_autocorr_matmul(jnp.asarray(xp), n))
-        ref = np.stack(
-            [np.correlate(x[:, i], x[:, i], "full")[n - 1:]
-             for i in range(s)],
-            axis=1,
-        )
-        assert_allclose(got, ref, atol=1e-10 * np.max(np.abs(ref)))
-
-    def test_zero_row_and_column(self):
-        """Regression (round-1 VERDICT weak #1): all-zero rows/columns
-        must normalize to exact zeros, not 0/0 = NaN. The old guard
-        floored ``amax`` at 1e-300, which underflows to 0.0 in the
-        TPU's float32-pair f64 emulation (float32 exponent range), so
-        every zero row NaN'd on device. Zero rows are not exotic — the
-        DFT sine table's row 0 (θ = 0) is always all-zero."""
-        from transport_analysis_tpu.ops.ozaki import matmul_f64_ozaki
-
-        rng = np.random.RandomState(4)
-        a = rng.randn(64, 128)
-        b = rng.randn(128, 96)
-        a[0] = 0.0      # all-zero row
-        a[17] = 0.0
-        b[:, 5] = 0.0   # all-zero column
-        got = np.asarray(matmul_f64_ozaki(a, b))
-        assert np.all(np.isfinite(got))
-        want = a @ b
-        assert_allclose(got, want, rtol=1e-12,
-                        atol=1e-13 * np.max(np.abs(want)))
-        assert np.all(got[0] == 0.0)
-        assert np.all(got[17] == 0.0)
-
-    def test_dft_tables_with_im_zero(self):
-        """The real round-1 trigger: genuine DFT cos/sin tables (sine
-        row 0 all-zero) against a purely-real signal (im = 0 → every
-        column of the im operand all-zero)."""
-        from transport_analysis_tpu.ops.ozaki import complex_dft_matmul
-
-        n, b = 128, 64
-        k = np.arange(n)
-        theta = 2 * np.pi * np.outer(k, k) / n
-        c, s = np.cos(theta), -np.sin(theta)
-        rng = np.random.RandomState(5)
-        re = rng.randn(n, b)
-        im = np.zeros((n, b))
-        got_re, got_im = complex_dft_matmul(
-            *map(jnp.asarray, (c, s, re, im))
-        )
-        got_re, got_im = np.asarray(got_re), np.asarray(got_im)
-        assert np.all(np.isfinite(got_re))
-        assert np.all(np.isfinite(got_im))
-        ref = np.fft.fft(re, axis=0)
-        scale = np.max(np.abs(ref))
-        assert_allclose(got_re, ref.real, atol=1e-12 * scale)
-        assert_allclose(got_im, ref.imag, atol=1e-12 * scale)

@@ -290,14 +290,14 @@ class TestGoldenDCD:
         assert out.read_bytes() == want
 
     def test_third_party_read(self, golden2):
-        """Independent third-party cross-read of the byte-frozen DCD
-        (VERDICT r2-r4 carry): when MDAnalysis is importable, its own
-        libdcd-backed reader must decode our golden to the same
-        coordinates. The development image ships no MD packages, so
-        this lane is env-gated (skip, not fail) — any CI or user
-        environment with MDAnalysis installed validates the format
-        automatically; PARITY.md records the standing rationale.
-        NetCDF and H5MD already cross-read via scipy/h5py."""
+        """Independent third-party cross-read of the byte-frozen DCD:
+        when MDAnalysis is importable, its own libdcd-backed reader
+        must decode our golden to the same coordinates. The development
+        image ships no MD packages, so this lane is env-gated (skip,
+        not fail) — any CI or user environment with MDAnalysis
+        installed validates the format automatically; PARITY.md
+        records the standing rationale. NetCDF and H5MD already
+        cross-read via scipy/h5py."""
         mda = pytest.importorskip("MDAnalysis")
         from MDAnalysis.coordinates.DCD import DCDReader as MDADCD
 

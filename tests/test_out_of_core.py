@@ -206,100 +206,85 @@ def test_helfand_out_of_core_sharded_matches_serial(
 
 
 class TestAutoAtomChunk:
-    def test_pad_filling_grid_deep(self):
-        from transport_analysis_tpu.ops.acf import auto_atom_chunk
+    """auto_atom_chunk: the largest chunk whose modeled FFT-pass peak
+    (ops.acf.fft_peak_bytes) fits the device budget."""
 
-        # deep-path rungs under the HARDWARE-ANCHORED peak model
-        # (46·M·w + (24+8)·N·chunk, see auto_atom_chunk docstring):
-        # the theoretical two-spectra model (32·M·w) admitted
-        # chunk=107 at N=2^20, whose one-jit chain compiles to an
-        # 18.0 GB program (OOM on the 16 GB v5e — XLA carries extra
-        # while-loop copies of the unpack outputs). The recalibrated
-        # model lands exactly on the rungs with recorded hardware
-        # runs: 85/170/341/682 (BENCH_NOTES round-5 ladder) — the
-        # true-lane w (_deep_w) still ends the 128-pad grid for
-        # small-P calls and odd d·chunk (w follows d·chunk/2, not
-        # 128k), it just no longer inflates the admitted chunk.
-        assert auto_atom_chunk(1048576, d=3) == 85
-        assert auto_atom_chunk(524288, d=3) == 170
-        assert auto_atom_chunk(131072, d=3) == 682
-        assert auto_atom_chunk(262144, d=3) == 341
-        # one rung past the north star (VERDICT item 7 prep)
-        assert auto_atom_chunk(2097152, d=3) == 42
+    @pytest.mark.parametrize("n_frames", [100, 10000, 32768, 131072,
+                                          1048576])
+    def test_largest_chunk_that_fits(self, n_frames):
+        from transport_analysis_tpu.ops.acf import (
+            auto_atom_chunk, fft_peak_bytes,
+        )
 
-    def test_engine_path_unchanged(self):
-        from transport_analysis_tpu.ops.acf import auto_atom_chunk
+        chunk = auto_atom_chunk(n_frames, d=3, hbm_budget_gb=60.0)
+        assert fft_peak_bytes(n_frames, chunk, 3) <= 60e9
+        assert fft_peak_bytes(n_frames, chunk + 1, 3) > 60e9
 
-        # 2048 at N=32768 modeled 11.3 GB under the old 48 B/elem
-        # engine coefficient but OOMed on hardware; 64 B/elem picks
-        # the hardware-validated 1024 (66 s for the 100k-atom slice)
-        assert auto_atom_chunk(32768, d=3) == 1024
-        assert auto_atom_chunk(8192, d=3) == 4096
+    def test_peak_model_terms(self):
+        from transport_analysis_tpu.ops.acf import fft_peak_bytes
+
+        # N = 10000 -> M = 32768; one atom, d = 3, f32 source
+        n, m, half = 10000, 32768, 16385
+        want = (n * 3 * (4 + 8) + m * 3 * 8 + 2 * half * 3 * 16
+                + half * 8 + 2 * m * 8)
+        assert fft_peak_bytes(n, 1, 3, 4) == want
+        # linear in the chunk
+        assert fft_peak_bytes(n, 7, 3, 4) == 7 * want
 
     def test_budget_scales(self):
         from transport_analysis_tpu.ops.acf import auto_atom_chunk
 
-        big = auto_atom_chunk(1048576, d=3, hbm_budget_gb=90.0)
-        # v5p-class HBM fits ~5.9x the v5e chunk under the anchored
-        # 46-coefficient (504 at 90 GB vs 85 at 15.25 GB)
-        assert big >= 5 * 85
+        small = auto_atom_chunk(1048576, d=3, hbm_budget_gb=15.0)
+        big = auto_atom_chunk(1048576, d=3, hbm_budget_gb=60.0)
+        assert 4 * small <= big <= 4 * small + 3
 
     def test_budget_resolution_order(self, monkeypatch):
-        """Pin the budget source priority: explicit argument > env var
-        > live-device memory_stats > v5e constants (VERDICT r3 #5)."""
-        from transport_analysis_tpu.ops import acf
-
-        monkeypatch.delenv(
-            "TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB", raising=False
-        )
-        # default: device returns None on CPU -> v5e deep constant
-        assert acf.auto_atom_chunk(1048576, d=3) == 85
-
-        # simulated 95 GB chip: the device-derived budget grows the
-        # chunk as modeled (~6x the v5e budget -> ~6x the chunk)
-        monkeypatch.setattr(
-            acf, "_device_hbm_budget_gb", lambda deep: 90.0
-        )
-        dev_chunk = acf.auto_atom_chunk(1048576, d=3)
-        assert dev_chunk == acf.auto_atom_chunk(
-            1048576, d=3, hbm_budget_gb=90.0
-        )
-        assert dev_chunk >= 5 * 85
-
-        # env var overrides the device-derived budget
-        monkeypatch.setenv(
-            "TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB", "15.25"
-        )
-        assert acf.auto_atom_chunk(1048576, d=3) == 85
-
-        # explicit argument overrides everything
-        assert (
-            acf.auto_atom_chunk(1048576, d=3, hbm_budget_gb=90.0)
-            == dev_chunk
-        )
-
-    def test_device_budget_scales_with_reported_capacity(
-        self, monkeypatch
-    ):
+        """Argument > TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB > the
+        device's memory_stats()["bytes_limit"]."""
         from transport_analysis_tpu.ops import acf
 
         class _FakeDev:
             def memory_stats(self):
-                return {"bytes_limit": int(95e9)}
+                return {"bytes_limit": int(40e9)}
 
-        monkeypatch.setattr(
-            acf.jax, "default_backend", lambda: "tpu"
-        )
-        monkeypatch.setattr(
-            acf.jax, "local_devices", lambda: [_FakeDev()]
-        )
-        deep = acf._device_hbm_budget_gb(True)
-        eng = acf._device_hbm_budget_gb(False)
-        # v5e headroom fractions applied to the reported 95 GB
-        assert deep == pytest.approx(95.0 * 15.25 / 15.75, rel=1e-12)
-        assert eng == pytest.approx(95.0 * 12.0 / 15.75, rel=1e-12)
+        monkeypatch.setattr(acf.jax, "local_devices", lambda: [_FakeDev()])
+        monkeypatch.delenv(acf.BUDGET_ENV, raising=False)
+        assert acf.device_budget_bytes() == 40e9
+        dev_chunk = acf.auto_atom_chunk(32768)
+        assert dev_chunk == acf.auto_atom_chunk(32768, hbm_budget_gb=40.0)
 
-    def test_out_of_core_accepts_auto(self, tmp_path):
+        monkeypatch.setenv(acf.BUDGET_ENV, "10")
+        assert acf.device_budget_bytes() == 10e9
+        assert acf.auto_atom_chunk(32768) == acf.auto_atom_chunk(
+            32768, hbm_budget_gb=10.0)
+
+        assert acf.device_budget_bytes(2.5) == 2.5e9
+        assert acf.auto_atom_chunk(32768, hbm_budget_gb=40.0) == dev_chunk
+
+    def test_no_reported_limit_raises(self, monkeypatch):
+        """A device without a memory limit (the CPU backend) has no
+        default budget."""
+        from transport_analysis_tpu.ops import acf
+
+        monkeypatch.delenv(acf.BUDGET_ENV, raising=False)
+        with pytest.raises(ValueError, match="no memory limit"):
+            acf.auto_atom_chunk(1024)
+
+    def test_too_small_budget_raises(self):
+        from transport_analysis_tpu.ops.acf import auto_atom_chunk
+
+        with pytest.raises(ValueError, match="does not hold one atom"):
+            auto_atom_chunk(1048576, hbm_budget_gb=1e-3)
+
+    def test_f32_source_fits_more_atoms(self):
+        from transport_analysis_tpu.ops.acf import auto_atom_chunk
+
+        f64 = auto_atom_chunk(1048576, hbm_budget_gb=60.0)
+        f32 = auto_atom_chunk(1048576, hbm_budget_gb=60.0,
+                              dtype=np.float32)
+        assert f32 > f64
+
+    def test_out_of_core_accepts_auto(self, tmp_path, monkeypatch):
         # default atom_chunk="auto" resolves and matches explicit int
         from transport_analysis_tpu.parallel.out_of_core import (
             vacf_out_of_core,
@@ -318,6 +303,8 @@ class TestAutoAtomChunk:
                     step=i,
                 )
         u = ta.Universe(Topology(na), path)
+        # the CPU device reports no memory limit: name a budget
+        monkeypatch.setenv("TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB", "0.01")
         out_auto = vacf_out_of_core(u, str(tmp_path / "s1"))
         out_int = vacf_out_of_core(
             u, str(tmp_path / "s2"), atom_chunk=4

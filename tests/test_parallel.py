@@ -1,6 +1,6 @@
 """Sharded-vs-unsharded equivalence on the 8-virtual-device CPU mesh
-(SURVEY.md §4: 'add CPU-vs-TPU and sharded-vs-unsharded equivalence
-tests; emulate multi-chip on CPU')."""
+(SURVEY.md §4: sharded-vs-unsharded equivalence tests, multi-device
+emulated on the CPU)."""
 
 import jax
 import numpy as np
@@ -83,6 +83,29 @@ def test_windowed_sharded_matches(u_random, mesh):
     )
 
 
+@pytest.mark.parametrize("kernel", ["acf_fft", "msd_fft",
+                                    "acf_windowed"])
+def test_map_particles_keeps_work_on_each_device(mesh, kernel):
+    """Per-particle kernels run on each device's own particles: the
+    compiled program gathers nothing, and the result stays sharded."""
+    from jax.sharding import PartitionSpec as P
+
+    from transport_analysis_tpu import ops
+    from transport_analysis_tpu.parallel import map_particles
+
+    fn = getattr(ops, kernel)
+    x = np.random.RandomState(3).normal(size=(64, 13, 3))
+    with parallel.use_mesh(mesh):
+        out = map_particles(fn, x)
+        hlo = jax.jit(lambda a: map_particles(fn, a)).lower(
+            x).compile().as_text()
+    assert out.sharding.spec == P(None, "atoms")
+    assert out.shape[1] % len(mesh.devices.flat) == 0  # padded particles
+    assert_allclose(np.asarray(out)[:, :13], np.asarray(fn(x)),
+                    rtol=1e-12, atol=1e-12)
+    assert "all-gather" not in hlo
+
+
 def test_multihost_feed_single_process(mesh):
     """distribute_atom_block on a single-process mesh reproduces
     device_put + sharding (the multi-host API degenerates cleanly)."""
@@ -162,7 +185,7 @@ def test_multihost_feed_two_processes(tmp_path):
     CPU processes (4 virtual devices each -> one 8-device global mesh)
     each feed only their own atom slab and the assembled global array
     is correct — the real multihost feed path, not the single-process
-    degenerate (VERDICT round-2 item 6)."""
+    degenerate."""
     import os
     import socket
     import subprocess

@@ -1,8 +1,7 @@
 """Frame-axis-sharded four-step FFT vs the serial matmul FFT / numpy.
 
-Runs on the suite's 8-virtual-device CPU backend (SURVEY.md §4 TPU-
-build mapping: emulate multi-chip via
-xla_force_host_platform_device_count).
+Runs on the suite's 8-virtual-device CPU backend
+(xla_force_host_platform_device_count emulates several devices).
 """
 
 import jax
@@ -97,9 +96,8 @@ def test_bad_factorization_raises():
 
 
 def test_sharded_acf_float32_psum_scatter_branch():
-    """float32 takes the native psum_scatter reduce (f64 rides the
-    ppermute ring because the TPU X64 rewriter can't lower an f64
-    reduce-scatter) — cover the f32 branch explicitly."""
+    """float32 through the psum_scatter reduce (float64 is covered by
+    the tests above)."""
     rng = np.random.RandomState(5)
     x = rng.normal(size=(256, 6, 3)).astype(np.float32)
     mesh = _mesh(8)

@@ -2,9 +2,9 @@
 transport_analysis_tpu
 ======================
 
-A TPU-native trajectory-analysis engine with the capability surface of
+A JAX trajectory-analysis engine with the capability surface of
 MDAnalysis/transport-analysis (reference: /root/reference), rebuilt from
-scratch on JAX/XLA/Pallas.
+scratch on JAX/XLA.
 
 Unlike the reference — a thin pure-Python layer over MDAnalysis's per-frame
 Python loop (reference transport_analysis/velocityautocorr.py:72,
@@ -16,19 +16,18 @@ viscosity.py:26) — this package provides the full stack itself:
 * ``models``   — the analyses: ``VelocityAutocorr``, ``ViscosityHelfand``,
                  ``EinsteinMSD`` with the reference's API surface
                  (``run(start, stop, step)``, ``results.timeseries``, ...).
-* ``ops``      — batched XLA/Pallas kernels: Wiener–Khinchin autocorrelation,
+* ``ops``      — batched XLA kernels: Wiener–Khinchin autocorrelation,
                  windowed lag sums, Einstein-difference correlations,
                  trapezoid/Simpson integration, linear fits.
 * ``parallel`` — device-mesh sharding (atoms over chips) and frame-chunked
-                 streaming for trajectories that exceed HBM.
+                 streaming for trajectories that exceed device memory.
 * ``io``       — trajectory readers/writers (TRR, DCD, Amber NetCDF, H5MD,
                  PDB topology) with a C++ frame-decode fast path.
 
 Numerics: transport properties need float64-grade accuracy (reference
 velocityautocorr.py:208 requires float64 for the FFT path). We therefore
 enable JAX x64 at import unless ``TRANSPORT_ANALYSIS_TPU_NO_X64`` is set.
-On TPU hardware, complex128 FFTs are unavailable; ``ops.acf`` transparently
-selects a split-precision path there (see ops/acf.py).
+The FFT paths run complex128 transforms natively (cuFFT on the GPU).
 """
 
 import os as _os

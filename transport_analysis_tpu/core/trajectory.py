@@ -5,7 +5,7 @@ reference consumes (SURVEY.md §2b): ``n_frames``, per-frame ``Timestep``
 iteration, random access, strided slicing, and an in-memory reader
 (``MemoryReader``, reference tests/utils.py:4,70).
 
-TPU-first extension: ``read_frames_batch`` returns whole *stacked*
+Batch-first extension: ``read_frames_batch`` returns whole *stacked*
 ``(n_frames, n_atoms, 3)`` arrays for a strided frame selection in one
 call, so the analysis runtime can ship a single contiguous block to the
 device instead of looping frame-by-frame in Python (the reference's hot
@@ -132,7 +132,7 @@ class ProtoReader:
         stop = min(stop, self.n_frames)
         return start, stop, step
 
-    # --- TPU feed path -------------------------------------------------------
+    # --- device feed path ---------------------------------------------------
     def read_frames_batch(self, indices: Iterable[int]) -> dict:
         """Decode many frames at once into stacked arrays.
 

@@ -88,8 +88,10 @@ def write_topology_pdb(path: str) -> None:
         fh.write("END\n")
 
 
-def generate_trajectory(top_path: str, trr_path: str) -> None:
-    """Ornstein–Uhlenbeck velocities + integrated positions.
+def generate_trajectory(top_path: str, trr_path: str,
+                        n_frames: int = N_FRAMES) -> None:
+    """Ornstein–Uhlenbeck velocities + integrated positions, ``n_frames``
+    frames DT apart.
 
     Velocities follow per-atom OU processes with the Maxwell–Boltzmann
     stationary distribution at 300 K (σ² = k_B·T/m in MDAnalysis
@@ -128,7 +130,7 @@ def generate_trajectory(top_path: str, trr_path: str) -> None:
     else:
         dims = [BOX, BOX, BOX, 90.0, 90.0, 90.0]
     with TRRWriter(trr_path, n_atoms) as w:
-        for frame in range(N_FRAMES):
+        for frame in range(n_frames):
             w.write(
                 positions=pos,
                 velocities=vel,

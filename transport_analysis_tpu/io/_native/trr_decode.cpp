@@ -1,4 +1,4 @@
-// Batched TRR frame decoder: the host-side hot path feeding the TPU.
+// Batched TRR frame decoder: the host-side hot path feeding the device.
 //
 // The reference's trajectory decode happens inside MDAnalysis's
 // C/Cython readers one frame at a time (SURVEY.md §2c). Here a whole

@@ -6,7 +6,7 @@ step, frames, verbose)`` drives ``_prepare()`` → per-frame work →
 ``_conclude()``, exposing ``n_frames``, ``times``, ``frames``,
 ``_frame_index``, ``_ts`` and a dict-like ``results``.
 
-TPU-first redesign: instead of the reference's serial per-frame Python
+Batch-first redesign: instead of the reference's serial per-frame Python
 loop (its hot loop #1), subclasses that implement ``_process_batch``
 receive the *entire* strided frame selection as stacked arrays in one
 ``read_frames_batch`` call and ship it to the device as a single block.
@@ -30,17 +30,14 @@ def source_cast(arr, work_dtype) -> np.ndarray:
     values are exactly representable in float64, so a float64-grade
     analysis does not require an 8-byte host buffer: keep the block
     f32 and let the ops layer consume it through the ``*_from_f32``
-    entries (ops/acf.py ``acf_fft_from_f32``), which synthesize the
-    exact (x, 0) double-float pair image on device — half the host
-    RAM, half the host→device transfer, and no upcast pass on the TPU
-    deep path (BENCH_NOTES round-8 "f32-exact source entries").
+    entries (ops/acf.py ``acf_fft_from_f32``), which upcast inside the
+    device program — half the host RAM and half the host→device
+    transfer.
 
     Returns ``arr`` unchanged when the work dtype is float64 and the
     source is float32; otherwise casts to the work dtype. Set
     ``TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE=1`` to force the eager
-    host upcast (bit-identical results on every non-deep path; the
-    deep path agrees to the pair grade ~2^-48, inside the engine's
-    1e-11 contract either way).
+    host upcast (bit-identical results).
     """
     import os
 
@@ -82,7 +79,7 @@ class Results(dict):
 class DeviceSeriesBuffer:
     """Assembles a (n_frames, …) series on the DEVICE from host frame
     blocks: the host holds one decoded block at a time while the full
-    selection accumulates in HBM (donated ``dynamic_update_slice``, so
+    selection accumulates on the device (donated ``dynamic_update_slice``, so
     each write reuses the buffer's memory instead of copying it).
 
     This is the frame-blocked feed for the batch engine — without it,

@@ -18,7 +18,7 @@ import numpy as np
 from ..core.groups import AtomGroup
 from ..utils.errors import NoDataError
 from .. import ops
-from ..parallel.sharding import shard_frames_axis
+from ..parallel.sharding import map_particles
 from .base import AnalysisBase
 from ._dims import parse_dim_type
 
@@ -78,13 +78,13 @@ class EinsteinMSD(AnalysisBase):
         from .base import source_cast
 
         # f32 decoder output stays f32 under a float64 work dtype —
-        # consumed f64-GRADE via einstein_difference_fft_from_f32
+        # upcast on the device via einstein_difference_fft_from_f32
         self._positions = source_cast(
             batch["positions"][:, self.ag.indices], self._work_dtype
         )[:, :, self._dim]
 
     def _process_block(self, batch, offset):
-        """Frame-blocked feed: position blocks stream host→HBM
+        """Frame-blocked feed: position blocks stream host→device
         (models/base.py DeviceSeriesBuffer)."""
         if "positions" not in batch:
             raise NoDataError("MSD computation requires positions")
@@ -146,8 +146,8 @@ class EinsteinMSD(AnalysisBase):
                 checkpoint=self.checkpoint,
             )
         else:
-            pos = shard_frames_axis(self._positions)
-            by_particle = kernel(pos)[:, : self.n_particles]
+            by_particle = map_particles(kernel, self._positions)[
+                :, : self.n_particles]
         self.results.msds_by_particle = np.asarray(by_particle)
         self.results.timeseries = np.asarray(by_particle.mean(axis=1))
         self._run_called = True

@@ -1,6 +1,6 @@
 """Velocity autocorrelation function (VACF) and Green–Kubo diffusivity.
 
-TPU-native counterpart of the reference's ``VelocityAutocorr``
+JAX counterpart of the reference's ``VelocityAutocorr``
 (velocityautocorr.py:72-422), computing
 
     C(j Δt) = 1/(N−j) · Σ_i v(iΔt)·v((i+j)Δt)
@@ -25,7 +25,7 @@ import numpy as np
 from ..core.groups import UpdatingAtomGroup
 from ..utils.errors import NoDataError
 from .. import ops
-from ..parallel.sharding import shard_frames_axis
+from ..parallel.sharding import map_particles
 from .base import AnalysisBase
 from ._dims import parse_dim_type
 
@@ -58,7 +58,7 @@ class VelocityAutocorr(AnalysisBase):
         self.fft = fft
         self.max_lag = max_lag
         # float64 default (reference-grade numerics); float32 is the
-        # fast mode on TPU (~1e-6 relative accuracy)
+        # fast mode (~1e-6 relative accuracy)
         self._work_dtype = np.dtype(dtype)
         self.atom_chunk = atom_chunk
         self.checkpoint = checkpoint
@@ -91,7 +91,7 @@ class VelocityAutocorr(AnalysisBase):
 
         v = batch["velocities"][:, self.atomgroup.indices]
         # f32 decoder output stays f32 under a float64 work dtype —
-        # the conclude kernel consumes it f64-GRADE via
+        # the conclude kernel upcasts it on the device via
         # ops.acf_fft_from_f32 (see base.source_cast)
         self._velocities = source_cast(v, self._work_dtype)[
             :, :, self._dim
@@ -99,7 +99,7 @@ class VelocityAutocorr(AnalysisBase):
 
     def _process_block(self, batch, offset):
         """Frame-blocked feed (``frame_block=`` ctor kwarg): blocks
-        stream host→HBM so the full (N, P, d) selection only ever
+        stream host→device so the full (N, P, d) selection only ever
         exists on device (models/base.py DeviceSeriesBuffer)."""
         if "velocities" not in batch:
             raise NoDataError(
@@ -112,7 +112,7 @@ class VelocityAutocorr(AnalysisBase):
             self._work_dtype,
         )[:, :, self._dim]
         if offset == 0:
-            # HBM buffer dtype follows the first block: f32 under a
+            # device buffer dtype follows the first block: f32 under a
             # float64 work dtype (f32-exact source mode)
             self._vel_buf = DeviceSeriesBuffer(
                 (self.n_frames, len(self.atomgroup), len(self._dim)),
@@ -172,9 +172,9 @@ class VelocityAutocorr(AnalysisBase):
             self.results.vacf_by_particle = by_particle
             self.results.timeseries = timeseries
         else:
-            vel = shard_frames_axis(self._velocities)
             # slice away any particle padding added for even sharding
-            by_particle = kernel(vel)[:, : self.n_particles]
+            by_particle = map_particles(kernel, self._velocities)[
+                :, : self.n_particles]
             self.results.vacf_by_particle = np.asarray(by_particle)
             self.results.timeseries = np.asarray(by_particle.mean(axis=1))
         self._run_called = True

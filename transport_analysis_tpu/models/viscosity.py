@@ -1,6 +1,6 @@
 """Einstein–Helfand shear viscosity.
 
-TPU-native counterpart of the reference's ``ViscosityHelfand``
+JAX counterpart of the reference's ``ViscosityHelfand``
 (viscosity.py:26-272): computes the "viscosity function" η(t)·t — the
 per-lag mean of squared differences of the mass-weighted
 position·velocity accumulator m·v·x, divided by 2·k_B·⟨V⟩·T (eq. 5 of
@@ -23,7 +23,7 @@ from ..core.groups import UpdatingAtomGroup
 from ..utils.errors import NoDataError
 from ..utils.units import constants
 from .. import ops
-from ..parallel.sharding import shard_frames_axis
+from ..parallel.sharding import map_particles
 from .base import AnalysisBase
 from ._dims import parse_dim_type
 
@@ -146,7 +146,7 @@ class ViscosityHelfand(AnalysisBase):
 
     def _process_block(self, batch, offset):
         """Frame-blocked feed: the m·v·x accumulator inputs stream
-        host→HBM block-by-block (models/base.py DeviceSeriesBuffer);
+        host→device block-by-block (models/base.py DeviceSeriesBuffer);
         per-frame volumes stay on host (they are (N,) scalars)."""
         if "velocities" not in batch or "positions" not in batch:
             raise NoDataError(self._NO_DATA_MSG)
@@ -224,7 +224,7 @@ class ViscosityHelfand(AnalysisBase):
             self.results.visc_by_particle = by_particle
             self.results.timeseries = timeseries / denom
         else:
-            by_particle = kernel(shard_frames_axis(accum))
+            by_particle = map_particles(kernel, accum)
             by_particle = by_particle[:, : self.n_particles]
             by_particle = np.asarray(by_particle) / denom
             self.results.visc_by_particle = by_particle

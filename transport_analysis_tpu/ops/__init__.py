@@ -11,11 +11,8 @@ from .integrate import (
     cumulative_trapezoid,
     polyfit_linear,
 )
-from .pallas_lag import windowed_lag_pallas
-from .pallas_fft import fft_precision
 
 __all__ = [
-    "fft_precision",
     "acf_fft",
     "acf_fft_from_f32",
     "acf_windowed",
@@ -27,5 +24,4 @@ __all__ = [
     "simpson",
     "cumulative_trapezoid",
     "polyfit_linear",
-    "windowed_lag_pallas",
 ]

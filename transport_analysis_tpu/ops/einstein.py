@@ -20,9 +20,9 @@ Two implementations:
       sum_i (A_i − A_{i+lag})² = S(0, N-lag-1) + S(lag, N-1) − 2·C(lag)
 
   where S are prefix-sum windows of |A|² and C(lag) is the raw (un-
-  normalized) autocorrelation from the FFT kernel. This gives the TPU
-  engine an asymptotically faster Helfand/MSD path than the reference,
-  which only ships the O(N²) loop.
+  normalized) autocorrelation from the FFT kernel. This gives an
+  asymptotically faster Helfand/MSD path than the reference, which
+  only ships the O(N²) loop.
 """
 
 from __future__ import annotations
@@ -31,6 +31,10 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
+
+from .acf import next_pow_2, raw_autocorr_sumlast
+
 
 @partial(jax.jit, static_argnames=("reduce_mode", "n_lags"))
 def _einstein_windowed_impl(
@@ -61,311 +65,56 @@ def einstein_difference_windowed(
     (N, P, d) → (n_lags, P).
 
     ``reduce_mode='mean'`` averages over components (Helfand,
-    viscosity.py:222); ``'sum'`` sums them (MSD convention).
-
-    On TPU the per-lag sweep runs in the blocked Pallas lag kernel
-    (ops/pallas_lag.py 'einstein' mode, double-float pair profile for
-    float64); elsewhere the lax.fori_loop XLA kernel.
+    viscosity.py:222); ``'sum'`` sums them (MSD convention). Runs as one
+    lax.fori_loop kernel over the lags.
     """
-    from .acf import _windowed_pallas_ok
-
     a = jnp.asarray(a)
     if a.ndim == 2:
         a = a[:, :, None]
     n = a.shape[0]
     n_lags = n if max_lag is None else min(int(max_lag), n)
-    if _windowed_pallas_ok(a.dtype, n, n_lags):
-        from .pallas_lag import windowed_lag_pallas
-
-        return windowed_lag_pallas(
-            a, max_lag=n_lags, mode="einstein", reduce_mode=reduce_mode
-        )
     return _einstein_windowed_impl(a, reduce_mode, n_lags)
 
 
-_PREFIX_BLOCK = 128
-
-
-def _tri_matmul_banded(tri: jax.Array, x: jax.Array) -> jax.Array:
-    """tri @ x in float64-grade via bf16 MXU GEMMs, exploiting that
-    ``tri`` is EXACTLY 0/1: only the data operand carries mantissa
-    bands, so the product needs one GEMM per data band (7) instead of
-    the full Ozaki 28-GEMM band-pair sweep. Accumulation is exact: the
-    band values are integers m <= 65 in their grid, and summing <= 128
-    of them stays far below f32's 2^24 integer boundary (the grids are
-    powers of two, so the sums are exact f32 multiples of the grid)."""
-    from .ozaki import _two_sum, prepare_rhs
-
-    b_bands, b_exp = prepare_rhs(x)
-    tri16 = tri.astype(jnp.bfloat16)  # 0/1: exact
-    sums = [
-        jax.lax.dot(tri16, band, preferred_element_type=jnp.float32)
-        for band in b_bands
-    ]
-    hi = sums[0]
-    lo = jnp.zeros_like(hi)
-    for g in sums[1:]:
-        hi, e = _two_sum(hi, g)
-        lo = lo + e
-    out = hi.astype(jnp.float64) + lo.astype(jnp.float64)
-    return out * b_exp
-
-
-def _prefix_sum_pairscan(x: jax.Array) -> jax.Array:
-    """Inclusive prefix sum along axis 0 of (N, P) float64 on the VPU
-    in compensated float32-pair arithmetic (Hillis–Steele shifts
-    within 128-row blocks + recursive block-total combine in f64).
-
-    Replaces the banded-MXU formulation for the TPU f64 path: that
-    route was EXACT but spent 2 full-array transposes (moveaxis to a
-    (128, n_blocks·P) GEMM layout and back) + a 7-band extraction per
-    call — measured 107 ms at the N=2^20, P=85 north-star shape where
-    the HBM speed of light is ~6 ms (benchmarks/micro_prefix.py). The
-    pair scan runs log2(128)=7 shifted compensated adds on the data
-    in its NATIVE layout: every f32 TwoSum is error-free, the only
-    roundings are the lo-plane folds (~7·2^-48 relative). The block
-    totals combine by recursing through _prefix_sum_blocked, which on
-    the TPU f64 path routes back into THIS pair scan — so the combine
-    is also compensated f32-pair arithmetic, not native f64; with
-    recursion depth ≤ 3 at N = 2^20 the end-to-end error is measured
-    ~2e-14 relative at N = 2^17, far inside both the 1e-12 test gate
-    and the package's 1e-11 contract.
-
-    Range note: the hi/lo planes are float32, so this function assumes
-    inputs and 128-row running block sums stay inside f32's dynamic
-    range (~1.2e-38 … 3.4e38); values outside it would overflow to inf
-    or flush to zero despite the float64 signature. TPU emulated f64
-    already carries an f32 exponent, so nothing reaching this path on
-    TPU can exceed it; the function is not used off-TPU.
-    """
-    n, p = x.shape
-    b = _PREFIX_BLOCK
-    n_blocks = -(-n // b)
-    x_pad = jnp.pad(x, ((0, n_blocks * b - n), (0, 0)))
-    from .ozaki import _two_sum_f32
-
-    hi = x_pad.astype(jnp.float32)
-    lo = (x_pad - hi.astype(jnp.float64)).astype(jnp.float32)
-    hi = hi.reshape(n_blocks, b, p)
-    lo = lo.reshape(n_blocks, b, p)
-    k = 1
-    while k < b:
-        sh = jnp.pad(hi[:, :-k], ((0, 0), (k, 0), (0, 0)))
-        sl = jnp.pad(lo[:, :-k], ((0, 0), (k, 0), (0, 0)))
-        s, e = _two_sum_f32(hi, sh)
-        hi, lo = s, lo + sl + e
-        k *= 2
-    intra = hi.astype(jnp.float64) + lo.astype(jnp.float64)
-    if n_blocks == 1:
-        return intra.reshape(n_blocks * b, p)[:n]
-    totals = intra[:, -1, :]  # (n_blocks, P) f64
-    csum = _prefix_sum_blocked(totals)  # recurse (depth ≤ 3 at 2^20)
-    offsets = csum - totals  # exclusive
-    out = intra + offsets[:, None, :]
-    return out.reshape(n_blocks * b, p)[:n]
-
-
-def _prefix_sum_blocked(x: jax.Array) -> jax.Array:
-    """Inclusive prefix sum along axis 0 of (N, P).
-
-    float64 ``jnp.cumsum`` on TPU is emulated element-by-element and
-    dominates the Einstein kernel at large N. TPU float64 routes
-    through the f32-pair Hillis–Steele scan (_prefix_sum_pairscan);
-    other backends/dtypes use a lower-triangular matmul per 128-row
-    block + a recursive combine of block totals.
-    """
-    from .fft import _use_ozaki
-
-    if _use_ozaki(x.dtype):
-        return _prefix_sum_pairscan(x)
-    n, p = x.shape
-    b = _PREFIX_BLOCK
-    n_blocks = -(-n // b)
-    x_pad = jnp.pad(x, ((0, n_blocks * b - n), (0, 0)))
-    blocks = x_pad.reshape(n_blocks, b, p)
-    tri = jnp.tril(jnp.ones((b, b), x.dtype))
-    intra = jnp.einsum(
-        "lk,bkp->blp", tri, blocks,
-        preferred_element_type=x.dtype,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    totals = intra[:, -1, :]  # (n_blocks, P)
-    if n_blocks > b:
-        csum = _prefix_sum_blocked(totals)
-    else:
-        csum = jnp.cumsum(totals, axis=0)
-    offsets = csum - totals  # exclusive
-    out = intra + offsets[:, None, :]
-    return out.reshape(n_blocks * b, p)[:n]
-
-
-@jax.jit
-def _center(a):
-    """Per-series centering; see _einstein_fft_impl for why."""
-    return a - jnp.mean(a, axis=0, keepdims=True)
-
-
-@jax.jit
-def _center_and_sq(a):
-    """Fused per-series centering + component-summed squares: one
-    program reads the (N, P, d) operand once for both outputs (the
-    separate _center -> _sq_sum chain re-read the centered array)."""
-    c = a - jnp.mean(a, axis=0, keepdims=True)
-    return c, jnp.sum(c * c, axis=-1)
-
-
-@partial(jax.jit, static_argnames=("d",))
-def _center_and_sq_flat(a, d: int):
-    """Fused centering + component-summed squares producing the
-    FLATTENED (N, P·d) centered operand the autocorrelation consumes.
-
-    Flattening FIRST matters on TPU: every elementwise op on an
-    (N, P, 3) array runs at 3/128 lane occupancy (the minor dim maps
-    to vector lanes) — measured 85 ms at the N=2^20 north-star chunk
-    where the flat form's speed of light is ~10 ms. The d-component
-    sum reduces a reshape VIEW of the full-width square array: the
-    lane-STRIDED slice formulation (c2[:, j::d] adds) it replaces
-    serialized as lane gathers — hardware-measured 136 ms vs 61 ms
-    for this form, bit-identical output (same summation order).
-    """
-    N = a.shape[0]
-    flat = a.reshape(N, -1)
-    c = flat - jnp.mean(flat, axis=0, keepdims=True)
-    c2 = c * c
-    sq = jnp.sum(c2.reshape(N, -1, d), axis=-1)
-    return c, sq
-
-
-@partial(jax.jit, static_argnames=("d",))
-def _center_and_sq_flat_pair(a, d: int):
-    """_center_and_sq_flat emitting the centered operand as an exact
-    double-float (hi, lo) f32 PAIR (plus the f64 |c|² component sum
-    the assembly consumes) — the pair-domain model feed: the f64
-    source is read ONCE (the split + column-mean fuse into one
-    pass), and every later op runs in f32 pair arithmetic instead of
-    emulated f64. Grades: the pair centering is a TwoSum (error-free
-    heads + folded tails, ~2^-48 relative vs the f64 subtract); the
-    squares/sums ride the same Dekker algebra as the engine kernels.
-    Measured vs the f64 path on the chain outputs: ~1e-14 relative
-    (hardware + CPU tests), inside the 1e-11 contract."""
-    from . import pallas_fft as _pfb
-
-    N = a.shape[0]
-    flat = a.reshape(N, -1)
-    if a.dtype == jnp.float32:
-        # exactly-representable f32 source: pair image (x, 0); the
-        # column means still accumulate in f64 (fused into the read)
-        mu = jnp.mean(flat, axis=0, keepdims=True,
-                      dtype=jnp.float64)
-        hi, lo = flat, jnp.zeros_like(flat)
-    else:
-        mu = jnp.mean(flat, axis=0, keepdims=True)
-        hi, lo = _pfb._split_pair(flat)
-    mh, ml = _pfb._split_pair(mu)
-    # pair centering: TwoSum(hi, -mh), tails folded
-    ch, e = _pfb._two_sum(hi, -mh)
-    cl = lo - ml + e
-    # |c|² summed over d -> f64. The pair route's Dekker products
-    # need uncontracted f32 mul/add (true on the TPU VPU, which has
-    # no f32 FMA); XLA:CPU's LLVM backend contracts them, so there
-    # the squares take one fused f64 pass instead (the pair path is
-    # never production-dispatched on CPU — this keeps the function
-    # testable). The TwoSum centering above is add/sub only and
-    # FMA-immune everywhere.
-    if _pfb._interpret():
-        c64 = ch.astype(jnp.float64) + cl.astype(jnp.float64)
-        sq = jnp.sum((c64 * c64).reshape(N, -1, d), axis=-1)
-    else:
-        sh, sl = _pfb._df_sq(ch, cl)
-        sq3h = sh.reshape(N, -1, d)
-        sq3l = sl.reshape(N, -1, d)
-        th, tl = sq3h[..., 0], sq3l[..., 0]
-        for c in range(1, d):
-            th, e2 = _pfb._two_sum(th, sq3h[..., c])
-            tl = tl + e2 + sq3l[..., c]
-        sq = th.astype(jnp.float64) + tl.astype(jnp.float64)
-    return ch, cl, sq
-
-
-@jax.jit
-def _sq_sum(a):
-    """|a_i|² summed over the component axis, (N, P, d) → (N, P)."""
-    return jnp.sum(a * a, axis=-1)
-
-
-def _assembly(sq: jax.Array, reduce_mode: str, d: int,
-              corr) -> jax.Array:
-    """Kneller/Calandrini assembly dispatch: TPU backends at supported
-    shapes run the fused Pallas window-sum kernels (ops/
-    pallas_kneller.py — css never materializes in HBM; measured
-    154 ms -> ~13 ms per north-star chunk), everything else the XLA
-    formulation below. The TPU gate is an ALLOWLIST
-    (pallas_fft.is_tpu_backend): unknown backend names must take the
-    backend-agnostic XLA path, not crash in Mosaic lowering (round-4
-    advisor finding). The CPU interpret-mode kernels stay reachable
-    through the tests' direct einstein_assembly calls."""
-    import os
-
-    from . import pallas_fft as _pfb
-
-    if (
-        _pfb.is_tpu_backend()
-        and not os.environ.get("TRANSPORT_ANALYSIS_TPU_NO_PALLAS_KNELLER")
-    ):
-        from . import pallas_kneller as _pk
-
-        if _pk.supported(sq.shape[0]):
-            return _pk.einstein_assembly(sq, corr, reduce_mode, d)
-    return _einstein_fft_impl(sq, reduce_mode, d, corr)
-
-
 @partial(jax.jit, static_argnames=("reduce_mode", "d"))
-def _einstein_fft_impl(sq: jax.Array, reduce_mode: str, d: int,
-                       corr) -> jax.Array:
-    """Kneller/Calandrini assembly. ``sq`` is the per-frame component
-    sum |a_i|² of the per-series CENTERED operand and ``corr`` its raw
-    component-summed autocorrelation: the identity
-    (s_head + s_tail - 2·corr) cancels catastrophically at small lags
-    when the series carries a large mean offset (positions routinely
-    do); zero-mean data makes the cancellation benign in f32 and
-    tightens f64 by orders of magnitude. Taking ``sq`` rather than the
-    full (N, P, d) operand lets the caller FREE the operand before the
-    correlation runs — holding it across the deep chain's multi-GB
-    stages was the OOM at the N=2^20 north-star rung (chunk=85). The
-    correlation is computed OUTSIDE this jit: tracing the Pallas
-    engine here would embed its banded level matrices as program
-    literals (~350 MB at n2 = 512 — rejected by tunneled
-    remote-compile backends and recompiled per shape everywhere
-    else)."""
+def _assemble(sq: jax.Array, corr: jax.Array, reduce_mode: str,
+              d: int) -> jax.Array:
+    """Kneller/Calandrini assembly from ``sq`` = Σ_d |a_i|² of the
+    per-series CENTERED operand and ``corr`` its raw component-summed
+    autocorrelation. Centering matters: (s_head + s_tail − 2·corr)
+    cancels catastrophically at small lags when the series carries a
+    large mean offset (positions routinely do); differences are
+    invariant under it."""
     N, P = sq.shape
-
-    # prefix sums of |a_i|² over components
-    css = _prefix_sum_blocked(sq)  # css[k] = sum_{i<=k} sq[i]
+    css = jnp.cumsum(sq, axis=0)  # css[k] = sum_{i<=k} sq[i]
     total = css[-1]
-
-    lags = jnp.arange(N)
-    # S_head(lag) = sum_{i=0}^{N-lag-1} sq[i] = css[N-lag-1]: an
-    # iota-reversal — jnp.flip (lax.rev, a relayout) instead of the
-    # equivalent css[N-1-lags] gather (TPU gathers serialize)
-    s_head = jnp.flip(css, axis=0)  # (N, P)
+    # S_head(lag) = sum_{i=0}^{N-lag-1} sq[i] = css[N-lag-1]
+    s_head = jnp.flip(css, axis=0)
     # S_tail(lag) = sum_{i=lag}^{N-1} sq[i] = total - css[lag-1]
     css_prev = jnp.concatenate(
         [jnp.zeros((1, P), sq.dtype), css[:-1]], axis=0
     )
     s_tail = total[None, :] - css_prev
     raw = s_head + s_tail - 2.0 * corr
-
-    # normalize via a precomputed (N, 1) reciprocal: emulated-f64
-    # DIVISION on TPU is an iterative multi-op sequence per element —
-    # dividing the (N, P) array cost ~50 ms at the north-star shape
-    # where N reciprocals + a broadcast multiply are near-free
-    denom = (N - lags).astype(sq.dtype)
+    denom = (N - jnp.arange(N)).astype(sq.dtype)
     if reduce_mode == "mean":
         denom = denom * d
-    inv = (1.0 / denom)[:, None]
-    out = raw * inv
+    out = raw / denom[:, None]
     # lag-0 row is exactly 0 by construction; pin it to kill FFT noise
     return out.at[0].set(0.0)
+
+
+@partial(jax.jit, static_argnames=("reduce_mode",))
+def _einstein_fft_impl(a: jax.Array, reduce_mode: str) -> jax.Array:
+    c = a - jnp.mean(a, axis=0, keepdims=True)
+    sq = jnp.sum(c * c, axis=-1)
+    corr = raw_autocorr_sumlast(c)
+    return _assemble(sq, corr, reduce_mode, a.shape[-1])
+
+
+@partial(jax.jit, static_argnames=("reduce_mode",))
+def _einstein_fft_upcast(a32: jax.Array, reduce_mode: str) -> jax.Array:
+    return _einstein_fft_impl(a32.astype(jnp.float64), reduce_mode)
 
 
 def einstein_difference_fft(a, reduce_mode: str = "mean",
@@ -373,78 +122,28 @@ def einstein_difference_fft(a, reduce_mode: str = "mean",
     """FFT-accelerated mean-squared lag difference, (N, P, d) → (N, P).
 
     Advanced: ``corr`` supplies a precomputed raw component-summed
-    autocorrelation of ``a`` — in that case ``a`` MUST already be
-    per-series centered (``a - a.mean(axis=0)``), since the Kneller/
-    Calandrini identity needs corr and the prefix sums to agree. This
-    lets callers batch several analyses' correlation passes into ONE
-    ``raw_autocorr_sumlast`` call over concatenated particle columns
-    (autocorrelation is per-series independent). Caveat measured in
-    BENCH_NOTES: the two-for-one complex packing pairs column s with
-    column s + S/2, so batched series should have comparable
-    magnitudes or the smaller partner loses band coverage."""
+    autocorrelation of ``a`` (``ops.acf.raw_autocorr_sumlast``) — in
+    that case ``a`` MUST already be per-series centered
+    (``a - a.mean(axis=0)``), since the Kneller/Calandrini identity
+    needs corr and the prefix sums to agree. This lets callers batch
+    several analyses' correlation passes into one call over
+    concatenated particle columns (autocorrelation is per-series
+    independent)."""
     a = jnp.asarray(a)
     if a.ndim == 2:
         a = a[:, :, None]
-    P, d = a.shape[1], a.shape[-1]
-    # |a_i|² summed over components FIRST (an (N, P) array, d·3×
-    # smaller; fused with the centering so the operand is read once
-    # and emitted in the FLAT (N, P·d) layout the correlation
-    # consumes), then the operand is handed to the correlation WITHOUT
-    # a surviving local reference (box.pop()): the deep chain at
-    # N ≥ 2^17 runs multi-GB stages, and a held operand adds its full
-    # size onto the chain's HBM peak (measured: the held centered
-    # operand was the OOM at the N=2^20 rung)
     if corr is None:
-        from . import pallas_fft as _pfb
-        from .acf import (
-            next_pow_2, raw_autocorr_sumlast_flat,
-            raw_autocorr_sumlast_flat_pair,
-        )
-        from . import deep_acf as _da
-
-        N, S = a.shape[0], a.shape[1] * d
-        m = 2 * next_pow_2(N)
-        if (
-            a.dtype == jnp.float64
-            and _pfb.is_tpu_backend()
-            and _da.supported(m, S)
-            and not _pfb.supported(m, S)
-            and _pfb._profile(jnp.float64)[0] == _pfb._N_BANDS
-        ):
-            # pair-domain feed (deep shapes on TPU): the centered
-            # operand never materializes as f64 — center + |c|² run
-            # in f32 pair arithmetic and the deep chain takes the
-            # pair directly (~2^-48 vs the f64 route, inside the
-            # 1e-11 contract; BENCH_NOTES round 8)
-            ch, cl, sq = _center_and_sq_flat_pair(a, d)
-            del a
-            box = [ch, cl]
-            del ch, cl
-            cl_ = box.pop()
-            corr = raw_autocorr_sumlast_flat_pair(
-                box.pop(), cl_, P, d)
-            return _assembly(sq, reduce_mode, d, corr)
-
-        flat, sq = _center_and_sq_flat(a, d)
-        del a
-        box = [flat]
-        del flat
-        # C(lag, p) = sum_i sum_d a[i]·a[i+lag]  (raw, unnormalized)
-        corr = raw_autocorr_sumlast_flat(box.pop(), P, d)
-    else:
-        sq = _sq_sum(a)
-    return _assembly(sq, reduce_mode, d, corr)
+        return _einstein_fft_impl(a, reduce_mode)
+    return _assemble(jnp.sum(a * a, axis=-1), corr, reduce_mode,
+                     a.shape[-1])
 
 
 def einstein_difference_fft_from_f32(a32, reduce_mode: str = "mean"
                                      ) -> jax.Array:
-    """float64-GRADE Helfand/Einstein lag difference from float32
-    samples (see acf.acf_fft_from_f32 for the contract): on the TPU
-    deep path the centering runs on the exact (x, 0) pair image —
-    means f64-accumulated, TwoSum centering, Dekker squares — and
-    the chain consumes the centered pair; no f64 operand ever
-    materializes. Elsewhere the source upcasts and the standard
-    route runs."""
+    """Float64 Helfand/Einstein lag difference of float32 samples (see
+    ``acf.acf_fft_from_f32``): the block stays float32 up to the device
+    and is upcast inside the same program. The result equals
+    ``einstein_difference_fft(a32.astype(float64), reduce_mode)``."""
     a32 = jnp.asarray(a32)
     if a32.dtype != jnp.float32:
         raise TypeError(
@@ -452,32 +151,7 @@ def einstein_difference_fft_from_f32(a32, reduce_mode: str = "mean"
             f"samples, got {a32.dtype}")
     if a32.ndim == 2:
         a32 = a32[:, :, None]
-    P, d = a32.shape[1], a32.shape[-1]
-
-    from . import pallas_fft as _pfb
-    from . import deep_acf as _da
-    from .acf import (
-        next_pow_2, raw_autocorr_sumlast_flat_pair,
-    )
-
-    N, S = a32.shape[0], P * d
-    m = 2 * next_pow_2(N)
-    if (
-        _pfb.is_tpu_backend()
-        and _da.supported(m, S)
-        and not _pfb.supported(m, S)
-        and _pfb._profile(jnp.float64)[0] == _pfb._N_BANDS
-    ):
-        ch, cl, sq = _center_and_sq_flat_pair(a32, d)
-        del a32
-        box = [ch, cl]
-        del ch, cl
-        cl_ = box.pop()
-        corr = raw_autocorr_sumlast_flat_pair(box.pop(), cl_, P, d)
-        return _assembly(sq, reduce_mode, d, corr)
-    box = [a32.astype(jnp.float64)]
-    del a32
-    return einstein_difference_fft(box.pop(), reduce_mode)
+    return _einstein_fft_upcast(a32, reduce_mode)
 
 
 def msd_fft(r) -> jax.Array:
@@ -488,3 +162,47 @@ def msd_fft(r) -> jax.Array:
     this as the Einstein cross-check on Green–Kubo diffusivity).
     """
     return einstein_difference_fft(r, reduce_mode="sum")
+
+
+def einstein_difference_numpy(a, reduce_mode: str = "mean") -> np.ndarray:
+    """Host float64 Kneller/Calandrini lag difference, (N, P, d) →
+    (N, P): numpy FFTs and ``np.cumsum`` on the centered series (the
+    tidynamics.msd algorithm), an oracle for the device paths."""
+    a = np.asarray(a, dtype=np.float64)
+    if a.ndim == 2:
+        a = a[:, :, None]
+    n, p, d = a.shape
+    c = a - a.mean(axis=0, keepdims=True)
+    sq = np.sum(c * c, axis=-1)
+    m = 2 * next_pow_2(n)
+    f = np.fft.rfft(c, n=m, axis=0)
+    power = (f.real ** 2 + f.imag ** 2).sum(axis=-1)
+    corr = np.fft.irfft(power, n=m, axis=0)[:n]
+    css = np.cumsum(sq, axis=0)
+    lags = np.arange(n)
+    s_head = css[n - 1 - lags]
+    s_tail = css[-1][None, :] - np.concatenate(
+        [np.zeros((1, p)), css[:-1]], axis=0)
+    out = (s_head + s_tail - 2.0 * corr) / (n - lags)[:, None]
+    if reduce_mode == "mean":
+        out = out / d
+    out[0] = 0.0
+    return out
+
+
+def einstein_difference_windowed_numpy(a, reduce_mode: str = "mean",
+                                       max_lag=None) -> np.ndarray:
+    """Host float64 per-lag squared differences, (N, P, d) →
+    (n_lags, P): the reference's loop (viscosity.py:210-226)."""
+    a = np.asarray(a, dtype=np.float64)
+    if a.ndim == 2:
+        a = a[:, :, None]
+    n, p, d = a.shape
+    n_lags = n if max_lag is None else min(int(max_lag), n)
+    out = np.zeros((n_lags, p))
+    for lag in range(1, n_lags):
+        diff = a[: n - lag] - a[lag:]
+        out[lag] = np.einsum("ipd,ipd->p", diff, diff) / (n - lag)
+    if reduce_mode == "mean":
+        out = out / d
+    return out

@@ -4,7 +4,7 @@ Device-side replacements for the scipy routines the reference calls on
 host (``scipy.integrate.trapezoid/simpson/cumulative_trapezoid`` at
 velocityautocorr.py:316,355,408 and ``np.polyfit`` at viscosity.py:240):
 same numerics, but jittable so Green–Kubo integration fuses with the
-correlation kernels on the TPU.
+correlation kernels on the device.
 """
 
 from __future__ import annotations

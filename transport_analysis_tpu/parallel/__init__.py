@@ -1,10 +1,10 @@
 from .mesh import analysis_mesh, use_mesh, current_mesh
-from .sharding import shard_frames_axis, shard_particles
+from .sharding import map_particles, shard_particles
 
 __all__ = [
     "analysis_mesh",
     "use_mesh",
     "current_mesh",
     "shard_particles",
-    "shard_frames_axis",
+    "map_particles",
 ]

@@ -1,10 +1,10 @@
 """Device-mesh management.
 
-The reference is strictly single-process (SURVEY.md §2d). The TPU engine
+The reference is strictly single-process (SURVEY.md §2d). The engine
 scales by sharding the *particle* axis across chips: per-particle
 correlations are embarrassingly parallel, so the only communication is
 the all-reduce behind the final particle mean — XLA inserts a ``psum``
-over ICI when the input carries a NamedSharding.
+across devices when the input carries a NamedSharding.
 
 Usage::
 

@@ -1,6 +1,6 @@
 """Multi-host data feed.
 
-On a multi-host TPU pod each process sees only its local devices; the
+On a multi-host cluster each process sees only its local devices; the
 trajectory must be fed per process and assembled into one global
 sharded array. ``distribute_atom_block`` wraps
 ``jax.make_array_from_process_local_data``: every process supplies the

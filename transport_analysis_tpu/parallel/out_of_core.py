@@ -116,30 +116,6 @@ def load_aux(spool_dir: str, field: str) -> dict:
         return {k: z[k] for k in z.files}
 
 
-def device_f64(block):
-    """Ship a float32 spool block to the default device and upcast
-    THERE: half the host→device bytes of a host-side f64 cast. This
-    is the feed-budget term of the north-star plan (BENCH_NOTES "feed
-    plan"): the 100k×1M chunk stream is 2.4 TB as f32 and would be
-    4.8 TB shipped as host-cast f64."""
-    import jax
-    import jax.numpy as jnp
-
-    return jnp.asarray(jax.device_put(block), jnp.float64)
-
-
-def device_f32(block):
-    """Ship a float32 spool block to the default device WITHOUT
-    upcasting: the f64-grade `*_from_f32` kernel entries (ops.acf_fft
-    _from_f32 / einstein_difference_fft_from_f32) consume the exact
-    f32 samples directly — the upcast pass and half the on-chip
-    source footprint disappear (round 8's pair-domain feed)."""
-    import jax
-    import jax.numpy as jnp
-
-    return jnp.asarray(jax.device_put(block), jnp.float32)
-
-
 def correlate_spools(
     kernel,
     paths: Sequence[str],
@@ -239,11 +215,12 @@ def correlate_spools(
 
 def _auto_chunk(atom_chunk, n_frames: int, d: int) -> int:
     """Resolve atom_chunk="auto" via ops.acf.auto_atom_chunk (the
-    pad-filling HBM model); integer values pass through unchanged."""
+    device-memory model of one float32 spool block's FFT pass); integer
+    values pass through unchanged."""
     if atom_chunk == "auto":
         from ..ops.acf import auto_atom_chunk
 
-        return auto_atom_chunk(n_frames, d=d)
+        return auto_atom_chunk(n_frames, d=d, dtype=np.float32)
     return int(atom_chunk)
 
 
@@ -285,11 +262,9 @@ def vacf_out_of_core(
     )
 
     def kernel(block):
-        # spool blocks are f32 (exactly-representable trajectory
-        # samples): the f64-grade pair path skips the device upcast
-        # pass and halves the source footprint; off the TPU deep
-        # path acf_fft_from_f32 upcasts internally (same result)
-        out = ops.acf_fft_from_f32(device_f32(block))
+        # spool blocks are f32 trajectory samples: they ship as f32
+        # and are upcast on the device
+        out = ops.acf_fft_from_f32(block)
         if max_lag:
             out = out[:max_lag]
         return out.sum(axis=1)  # particle-sum ON DEVICE: (L,) readback
@@ -352,8 +327,7 @@ def helfand_out_of_core(
     vol_avg = float(np.mean(volumes))
 
     def kernel(block):
-        out = ops.einstein_difference_fft_from_f32(
-            device_f32(block), "mean")
+        out = ops.einstein_difference_fft_from_f32(block, "mean")
         if max_lag:
             out = out[:max_lag]
         return out.sum(axis=1)  # particle-sum ON DEVICE: (L,) readback
@@ -394,11 +368,9 @@ def msd_out_of_core(
     )
 
     def kernel(block):
-        # msd_fft(r) == einstein_difference_fft(r, "sum"); the f32
-        # spool block rides the f64-grade pair path (see the VACF
-        # kernel above)
-        out = ops.einstein_difference_fft_from_f32(
-            device_f32(block), "sum")
+        # msd_fft(r) == einstein_difference_fft(r, "sum"), upcast on
+        # the device (see the VACF kernel above)
+        out = ops.einstein_difference_fft_from_f32(block, "sum")
         if max_lag:
             out = out[:max_lag]
         return out.sum(axis=1)  # particle-sum ON DEVICE: (L,) readback

@@ -3,7 +3,7 @@
 The frame axis is this framework's "sequence" (SURVEY.md §5). For
 windowed (exact, non-FFT) correlations at frame counts that exceed one
 chip, the trajectory is sharded into B contiguous frame blocks across a
-mesh axis, and block pairs exchange over the ICI ring:
+mesh axis, and block pairs exchange around a ring of devices:
 
     round k (k = 0..B-1):
       every device holds its own block X_i and a visiting block X_j,
@@ -15,7 +15,7 @@ mesh axis, and block pairs exchange over the ICI ring:
 Every lag 0..N-1 receives contributions from exactly the frame pairs
 the serial algorithm uses, so after the final psum the result is
 bit-comparable to the single-device windowed kernel. Communication is
-nearest-neighbor only (ppermute rides ICI), compute is O(N²/B) per
+nearest-neighbor only (``ppermute``), compute is O(N²/B) per
 device — the distributed analogue of the reference's O(N²) lag loop
 (reference velocityautocorr.py:223-235).
 
@@ -127,7 +127,7 @@ def windowed_correlation_ring(
     (N, P) per-lag *means*: sums / (N - lag), matching ops.acf_windowed
     / ops.einstein_difference_windowed.
     """
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     x = jnp.asarray(x)
     N = x.shape[0]
@@ -151,7 +151,7 @@ def windowed_correlation_ring(
         mesh=mesh,
         in_specs=(pspec_in,),
         out_specs=pspec_out,
-        check_rep=False,
+        check_vma=False,
     )
     x_sharded = jax.device_put(x, NamedSharding(mesh, pspec_in))
     sums = fn(x_sharded)
